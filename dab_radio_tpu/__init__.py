@@ -1,6 +1,7 @@
-"""dab_radio_tpu — a TPU-native DAB software-defined-radio framework.
+"""dab_radio_tpu — a DAB software-defined-radio framework for one or more
+GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the C++ reference
+A from-scratch JAX/XLA re-design of the capabilities of the C++ reference
 receiver williamyang98/DAB-Radio (see SURVEY.md): OFDM demodulation of 2.048 MSPS
 IQ streams, full DAB digital decode (FIC/FIG ensemble database, MSC subchannels,
 punctured Viterbi, Reed-Solomon/firecode, AAC/MP2 audio, PAD/MOT data), a

@@ -576,7 +576,7 @@ def main(argv=None):
     ap.add_argument("--viterbi", default="exact",
                     choices=["exact", "tiled"],
                     help="MSC Viterbi: exact full-trellis or overlap-save "
-                         "tiled (lower round latency; docs/PERF.md)")
+                         "tiled (lower round latency)")
     ap.add_argument("--chainback", default="sequential",
                     choices=["sequential", "parallel", "fused"],
                     help="Viterbi traceback: sequential walk or log-depth "
@@ -615,6 +615,8 @@ def main(argv=None):
     add_backend_flag(ap)
     args = ap.parse_args(argv)
     apply_backend(args)
+    from ..utils.cache import enable_compile_cache
+    enable_compile_cache()
 
     from ..models.fused_fleet import FusedFleet
 

@@ -57,6 +57,22 @@ def _test_card_png(idx: int, w: int = 96, h: int = 64) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def ensemble_transmitter(mode: int, services: int, tone: bool = True):
+    """The --payload ensemble transmitter: `services` DAB+ services, each on
+    a 48 CU EEP-3A subchannel (ids 3, 4, ... at CU 0, 48, ...), carrying
+    tone audio unless tone=False (random AU bytes)."""
+    from ..models.transmitter import EnsembleTransmitter, ServiceSpec
+    from ..params import SubchannelConfig
+    tx = EnsembleTransmitter(mode, services=[
+        ServiceSpec(0xF123 + i, 3 + i, f"Radio DAB {i + 1}",
+                    SubchannelConfig(48 * i, 48, False, eep_type="A",
+                                     eep_prot_level=2))
+        for i in range(services)])
+    if tone:
+        tx.enable_tone_audio()
+    return tx
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-M", "--transmission-mode", type=int, default=1)
@@ -84,20 +100,13 @@ def main(argv=None):
     p = get_ofdm_params(args.transmission_mode)
 
     if args.payload == "ensemble":
-        from ..models.transmitter import EnsembleTransmitter, ServiceSpec
-        from ..params import SubchannelConfig
-        tx = EnsembleTransmitter(args.transmission_mode, services=[
-            ServiceSpec(0xF123 + i, 3 + i, f"Radio TPU {i + 1}",
-                        SubchannelConfig(48 * i, 48, False, eep_type="A",
-                                         eep_prot_level=2))
-            for i in range(args.services)])
-        if args.audio == "tone":
-            tx.enable_tone_audio()
-            if args.slideshow:
-                for i in range(args.services):
-                    tx.queue_dynamic_label(3 + i, f"Now: Radio TPU {i + 1}")
-                    tx.queue_slideshow(3 + i, _test_card_png(i),
-                                       name=f"card_{i}.png")
+        tx = ensemble_transmitter(args.transmission_mode, args.services,
+                                  tone=args.audio == "tone")
+        if args.audio == "tone" and args.slideshow:
+            for i in range(args.services):
+                tx.queue_dynamic_label(3 + i, f"Now: Radio DAB {i + 1}")
+                tx.queue_slideshow(3 + i, _test_card_png(i),
+                                   name=f"card_{i}.png")
         gen = tx.next_frame_iq
     else:
         mod = OFDMModulator(args.transmission_mode)

@@ -188,7 +188,7 @@ def render_lines(demod, sd, rx, stats, nb_frames, t0, show_constellation=True,
     freq = (float(c.freq_coarse) + float(c.freq_fine)) * SAMPLE_RATE \
         if np.ndim(c.freq_coarse) == 0 else 0.0
     lines.append(
-        f"DAB-Radio TPU   mode I   {nb_frames} frames   "
+        f"DAB-Radio   mode I   {nb_frames} frames   "
         f"{time.time() - t0:6.1f}s   state={'TRACK' if sd.state else 'ACQUIRE'}")
     mer = ""
     if sd.last_window is not None:

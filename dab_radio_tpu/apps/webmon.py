@@ -2,8 +2,8 @@
 
 Decodes an IQ stream continuously (like radio_cli) and serves the
 reference GUI's views to any browser — no display stack needed on the
-decoding host, which fits TPU pods better than the reference's native
-ImGui window (examples/gui/):
+decoding host, which fits headless GPU servers better than the
+reference's native ImGui window (examples/gui/):
 
   /               auto-refreshing page embedding the live dashboard
   /dashboard.png  the monitor's 6-panel render of the LAST frame
@@ -177,9 +177,9 @@ def _dashboard_png(st: _State) -> bytes:
         os.unlink(path)
 
 
-_PAGE = b"""<!doctype html><title>DAB-Radio TPU</title>
+_PAGE = b"""<!doctype html><title>DAB-Radio</title>
 <body style="background:#111;color:#ddd;font-family:monospace">
-<h3>DAB-Radio TPU &mdash; live monitor</h3>
+<h3>DAB-Radio &mdash; live monitor</h3>
 <div id="tuner"></div><div id="ss"></div><div id="ctl"></div>
 <div>
 <canvas id="p_imp" width="440" height="140"></canvas>

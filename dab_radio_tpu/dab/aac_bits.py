@@ -5,7 +5,7 @@ AAC elements are not self-delimiting — locating the fill element requires
 parsing everything before it, including Huffman-coded spectral data. The
 reference delegates this to its vendored faad2 (src/dab/audio/
 aac_audio_decoder.cpp:328-350); here we walk the bitstream ourselves so the
-SBR payload can be split out for the TPU-side SBR stage while the system
+SBR payload can be split out for the own SBR stage while the system
 libavcodec decodes the stripped AAC-LC core (which it supports at 960).
 
 Walks: SCE/CPE/LFE (full individual_channel_stream incl. section data,

@@ -4,7 +4,7 @@ The reference sustains real-time ingest by decoupling its reader and
 demodulator threads with a blocking ring buffer
 (reference examples/app_helpers/app_io_buffers.h:189-245 ThreadedRingBuffer:
 a bounded producer/consumer queue whose writes block when the consumer lags).
-This is the TPU-serving analog: a staging THREAD reads fixed-size rounds
+This is the serving analog: a staging THREAD reads fixed-size rounds
 from the byte source and uploads them to the device (`jax.device_put`)
 while the serving loop's CURRENT round computes, handing finished device
 arrays over a bounded queue.
@@ -137,10 +137,15 @@ class DoubleBufferedFeeder:
         except BaseException as e:          # surface in the consumer
             st.error = e
         finally:
-            try:
-                self._q.put(self._DONE, timeout=10.0)
-            except queue.Full:
-                pass                        # consumer stopped first
+            # after close() nobody reads the queue, so give up rather than
+            # wait on a slot that the last staged round may still hold
+            while True:
+                try:
+                    self._q.put(self._DONE, timeout=0.1)
+                    break
+                except queue.Full:
+                    if self._stop.is_set():
+                        break
 
     def get(self, timeout: Optional[float] = None):
         """Next (blk, tail) device pair, or None at end of stream.

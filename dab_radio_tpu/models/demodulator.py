@@ -1,6 +1,6 @@
 """Streaming OFDM demodulator — the flagship compute model.
 
-TPU-first re-design of the reference's 5-state sample-consuming machine
+Accelerator re-design of the reference's 5-state sample-consuming machine
 (src/ofdm/ofdm_demodulator.cpp): demodulation is a fixed-shape, jittable
 `frame_step(carry, window)` over one frame-sized window plus a timing margin,
 with all synchronisation state in an explicit carry pytree. The host driver
@@ -52,10 +52,6 @@ class DemodConfig:
     # applies it one frame late and wastes the first frame after lock);
     # small errors keep the smoothed carry path to avoid jitter at low SNR
     fine_sameframe_bins: float = 0.05
-    # > 0: tile the frame-body FFT over the symbol axis in chunks of this
-    # size (must divide nb_frame_symbols-+1; bounds fused working sets at
-    # large stream batches — the round-1 batch-512 VMEM collapse)
-    symbol_chunk: int = 0
 
 
 class DemodCarry(NamedTuple):
@@ -165,8 +161,7 @@ class OFDMDemodulator:
             nb_frame_symbols=p.nb_frame_symbols,
             nb_cyclic_prefix=cp,
             carrier_bins=jnp.asarray(self.carrier_bins),
-            carrier_map=jnp.asarray(self.carrier_map),
-            symbol_chunk=cfg.symbol_chunk)
+            carrier_map=jnp.asarray(self.carrier_map))
 
         # 6. fractional CFO update (used from the next frame on)
         ferr = sync_ops.fine_freq_error(cyc_err, nfft)

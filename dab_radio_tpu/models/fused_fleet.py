@@ -9,9 +9,8 @@ frames_per_step-frame round (parallel/mesh.py:multichip_receiver_step,
 heterogeneous UEP/EEP shapes included), decoded bits are packed to bytes
 ON DEVICE, and the host touches only the FIG/superframe byte layer — the
 reference's force-decode benchmark mode (basic_radio_app.cpp:134-137)
-taken to the chip. Measured ~70 real-time mode-I ensembles per chip with
-device-resident IQ (tools/bench_fleet.py --fused --resident drives this
-class).
+taken to the card (bench.py, chip_smoke.py and tools/bench_fleet.py
+--fused drive this class).
 
 Feed rounds with `process_round(iq)` where iq is (N, 2*K*frame_samples)
 raw interleaved uint8 IQ (host array or device array — pass device-

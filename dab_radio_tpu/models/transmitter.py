@@ -231,7 +231,7 @@ class EnsembleTransmitter:
     """Synthesizes IQ for a complete DAB ensemble (mode I-IV)."""
 
     def __init__(self, transmission_mode: int = 1, ensemble_id: int = 0xC0FE,
-                 ensemble_label: str = "TPU Ensemble",
+                 ensemble_label: str = "DAB Ensemble",
                  services: Optional[List[ServiceSpec]] = None):
         self.mode = transmission_mode
         self.dab = get_dab_params(transmission_mode)

@@ -45,7 +45,7 @@ def deinterleave_push_block(history: jnp.ndarray, seq: jnp.ndarray,
     After pushing CIFs seq[0..c], the 16-row window over the concatenation
     [history ‖ seq] is rows [c+1, c+17), so output c's bit i reads row
     c + 1 + gather_idx[i]: ONE static gather replaces the C-iteration scan
-    (the fused serving round is sequential-depth-bound, docs/NOTES_r3.md).
+    (each scan iteration would cost at least one kernel launch).
 
     history: (..., 16, nb_bits) oldest-first; seq: (..., C, nb_bits).
     Returns (new_history (..., 16, nb_bits), outs (..., C, nb_bits)) —

@@ -18,7 +18,7 @@ SOFT_HIGH = 127.0
 def demod_frame_body(body: jnp.ndarray, freq_offset, *, nb_fft: int,
                      nb_symbol_period: int, nb_frame_symbols: int,
                      nb_cyclic_prefix: int, carrier_bins: jnp.ndarray,
-                     carrier_map: jnp.ndarray, symbol_chunk: int = 0):
+                     carrier_map: jnp.ndarray):
     """Demodulate one aligned frame body.
 
     body: (..., nb_frame_symbols * nb_symbol_period) complex64 starting at the
@@ -43,19 +43,9 @@ def demod_frame_body(body: jnp.ndarray, freq_offset, *, nb_fft: int,
     cyclic_err = jnp.arctan2(jnp.imag(v), jnp.real(v))
     mean_cyclic_err = jnp.sum(cyclic_err, axis=-1) / s
 
-    # cyclic prefix removal + batched FFT. symbol_chunk > 0 tiles the
-    # symbol axis through lax.map so each fused FFT block's working set
-    # stays VMEM-sized at large stream batches (round-1 plateau ablation)
+    # cyclic prefix removal + one batched FFT over every symbol
     data = syms[..., nb_cyclic_prefix:]
-    if symbol_chunk and s % symbol_chunk == 0:
-        import jax
-        chunks = data.reshape(*data.shape[:-2], s // symbol_chunk,
-                              symbol_chunk, nb_fft)
-        chunks = jnp.moveaxis(chunks, -3, 0)
-        fft = jax.lax.map(jnp.fft.fft, chunks)
-        fft = jnp.moveaxis(fft, 0, -3).reshape(*data.shape[:-2], s, nb_fft)
-    else:
-        fft = jnp.fft.fft(data)                               # (..., S, nfft)
+    fft = jnp.fft.fft(data)                                   # (..., S, nfft)
 
     # differential demod between consecutive symbols, PRS as phase reference.
     # NOTE the conjugation direction: the reference demaps conj(sym_k+1)*sym_k

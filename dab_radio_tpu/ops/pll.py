@@ -2,7 +2,7 @@
 
 y(t) = x(t) * e^{j 2 pi f (t0 + t)} with f normalised to the sample rate.
 The reference hand-vectorises this with a Chebyshev sine (src/ofdm/dsp/
-apply_pll.cpp); on TPU it is a fused elementwise complex multiply XLA
+apply_pll.cpp); here it is a fused elementwise complex multiply XLA
 generates directly.
 """
 

@@ -2,9 +2,10 @@
 
 The reference gets these from faad2's sbr_qmf.c; here both banks are
 expressed as (windowed fold) @ (complex exponential matrix) products — the
-shape XLA tiles straight onto the MXU when batched over channels/streams.
-NumPy runs on host (per-AU work is tiny); `jax.numpy` drop-in works for
-batched TPU execution since only matmul/reshape/strided-add are used.
+shape that maps onto batched matrix products when batched over
+channels/streams. NumPy runs on host (per-AU work is tiny); `jax.numpy` is a
+drop-in for batched device execution since only matmul/reshape/strided-add
+are used.
 
 Conventions (validated to perfect reconstruction, then differentially
 against libavcodec's HE-AAC@1024 SBR decode):

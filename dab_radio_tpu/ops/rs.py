@@ -305,10 +305,13 @@ def rs_encode(msg: np.ndarray, nroots: int, pad: int) -> np.ndarray:
 # GF(2^8) is an 8-dimensional vector space over GF(2) and multiplication by a
 # constant is linear, so the whole syndrome computation
 #   S_j = XOR_i c_i * alpha^{j*(n-1-i)}
-# is one fixed binary matrix applied to the codeword bits: on TPU that is a
-# single (B, n*8) @ (n*8, t*8) matmul (exact in f32 — column sums < 2^24)
-# followed by a parity reduction. The normal case (clean codeword, all
-# syndromes zero) therefore costs one MXU matmul on device; only rows whose
+# is one fixed binary matrix applied to the codeword bits: a single
+# (B, n*8) @ (n*8, t*8) matmul followed by a parity reduction. The matmul
+# runs in f32 at JAX's default precision, which on a GPU may be TF32; it
+# stays exact because both operands are 0/1 (exact in TF32) and each column
+# sum is an integer <= n*8 = 960, far below f32's 2^24. The normal case
+# (clean codeword, all syndromes zero) therefore costs one device matmul;
+# only rows whose
 # syndrome gate fires fall back to the host Berlekamp-Massey/Forney tail.
 # Matches the reference's decode loop entry (reed_solomon_decoder.cpp) which
 # always runs the full scalar syndrome loop per codeword on CPU.

@@ -5,11 +5,10 @@ Parity surface: reference src/dab/algorithms/dab_viterbi_decoder.{h,cpp} and
 the vendored ViterbiDecoderCpp (soft bits int8 in [-127,+127], punctured
 positions fed as 0, add-compare-select over 64 states, chainback to state 0).
 
-TPU design (SURVEY.md §7): instead of SIMD lanes over one stream, the decoder
+Accelerator design (SURVEY.md §7): instead of SIMD lanes over one stream, the decoder
 is a `lax.scan` over trellis steps whose per-step add-compare-select is a pure
 reshape/min butterfly over the 64-state axis (no gathers), vmapped over a batch
 axis (subchannels x ensembles). Depuncturing is a precomputed static gather.
-A Pallas ACS kernel can swap in behind the same interface later.
 
 State convention: state s after consuming bit a(t) is the 6 most recent input
 bits with a(t) at bit 5: s_t = [a(t) a(t-1) ... a(t-5)]. The transition from
@@ -77,7 +76,7 @@ def _branch_pattern_lut():
     matmul (1024*B MACs/step) one can compute the 16 sums with a
     (16, 4) @ (4, B) matmul (64*B MACs) and expand with a static 128-row
     gather — the speed-of-light lever for the ACS step, whose ALU budget
-    is dominated by the branch matmuls (docs/PERF.md roofline).
+    is dominated by the branch matmuls.
 
     Returns (idx (128,) int32, H (16, 4) f32) with
     _branch_sign_matrix().T[k, :] == H[idx[k], :] for every k."""
@@ -209,14 +208,20 @@ def _radix4_forward_sm(pm0, xs, branch: str = "matmul"):
     pm0: (64, B) f32. xs: (T/2, 2, B, 4) f32. Returns (pm (64, B),
     decisions (T/2, 64, B) uint8).
 
-    Layout note: the batch axis is minor-most so every (64, B) array maps
-    onto full 128-wide VPU lanes — measured 8x faster on TPU than the
-    batch-major layout (the (B, 64) form leaves half the lanes idle).
+    Layout note: the batch axis is minor-most, so every (64, B) array is
+    contiguous along the lanes (B) and each state row is one coalesced
+    vector.
 
     branch="lut" computes the 16 distinct +/-d sums with a (16, 4)
     matmul and expands them with a static gather instead of the (128, 4)
     sign matmul — 16x fewer branch MACs, bit-identical metrics
-    (_branch_pattern_lut); an A/B lever for the ACS roofline gap."""
+    (_branch_pattern_lut); an A/B lever for the ACS step.
+
+    Precision: the branch products are f32 matmuls at JAX's default
+    precision, which on a GPU may run in TF32 (10 explicit mantissa bits).
+    They stay exact: every operand is a +/-1 sign or an integer soft
+    symbol with |d| <= 127, which TF32 represents exactly, and the f32
+    accumulation of at most four products of magnitude <= 127 is exact."""
     St = jnp.asarray(_branch_sign_matrix().T).astype(jnp.float32)  # (128, 4)
     B = pm0.shape[-1]
 
@@ -226,11 +231,13 @@ def _radix4_forward_sm(pm0, xs, branch: str = "matmul"):
         idxj = jnp.asarray(idx16)                      # (128,)
 
         def branch_err(d_t):
+            # +/-1 @ |d| <= 127: exact even in TF32 (see docstring)
             v = Hj @ d_t.T                             # (16, B)
             return v[idxj].reshape(NB_STATES, 2, B)
     else:
         def branch_err(d_t):
-            # (128, 4) @ (4, B) -> (128, B) = (s*2+b, B), state-major
+            # (128, 4) @ (4, B) -> (128, B) = (s*2+b, B), state-major;
+            # +/-1 @ |d| <= 127: exact even in TF32 (see docstring)
             return (St @ d_t.T).reshape(NB_STATES, 2, B)
 
     # packed min+argmin: ONE min reduction yields both the survivor metric
@@ -278,8 +285,8 @@ def _radix4_chainback_sm(decisions, state0):
     bits (T, B) int8 (forward time order).
 
     The per-step state lookup is a one-hot select (compare + where + sum
-    over the 64-state axis) instead of a gather — dynamic gathers inside a
-    scan lower poorly on TPU."""
+    over the 64-state axis) instead of a gather, so the step is one fused
+    elementwise + reduction kernel."""
     iota = jnp.arange(NB_STATES, dtype=jnp.int32)[:, None]
 
     def back(state, dec_t):
@@ -313,8 +320,8 @@ def _chainback_parallel_sm(decisions, state0, radix_bits: int):
     (compose(a, b)[s] = a[b[s]], one take_along_axis per node) computes all
     H_t in O(log Tr) sequential depth at O(Tr log Tr) gather work — the
     lever for the latency-bound fused serving round, where the Viterbi
-    batch is small and scan iterations, not FLOPs, bound the round
-    (docs/NOTES_r3.md roofline). For the throughput regime (B >= 4096) the
+    batch is small and scan iterations, not FLOPs, bound the round. For the
+    throughput regime (B >= 4096) the
     sequential chainback's O(Tr) work wins; callers choose via
     `chainback=`."""
     Tr, S, B = decisions.shape
@@ -351,8 +358,7 @@ def _radix4_forward_re(pm0, xs, branch: str = "matmul"):
     exchange the appended bits are a static property of the destination
     state: s' = (b2<<5)|(b1<<4)|j). The traceback scan disappears
     entirely — sequential depth is the ACS scan alone, the last lever
-    class left after radix-4 + tiled + parallel chainback
-    (docs/PERF.md "where the time goes").
+    class left after radix-4 + tiled + parallel chainback.
 
     Work trade: O(T^2/32) word-selects vs chainback's O(T), so this is
     for SHORT trellises where scan depth, not word volume, bounds the
@@ -444,7 +450,7 @@ def _re_extract_bits(hist, state0, T: int):
 def _radix8_forward_sm(pm0, xs):
     """State-major radix-8 forward pass: THREE trellis steps fused per
     scan iteration (sequential depth T/3 vs T/2 for radix-4; the scans are
-    the latency bound, NOTES_r3 roofline).
+    the latency bound).
 
     pm0: (64, B) f32. xs: (T/3, 3, B, 4) f32. Returns (pm (64, B),
     decisions (T/3, 64, B) uint8 — 3-bit ancestor index)."""
@@ -549,8 +555,8 @@ def viterbi_decode_soft_radix4(depunctured: jnp.ndarray, start_state: int = 0,
                                chainback: str = "sequential",
                                branch: str = "matmul"):
     """Radix-4 decode: two trellis steps fused per scan iteration, halving
-    the sequential depth (the latency bottleneck on TPU, where per-step
-    tensors are tiny), in the state-major (64, B) layout (see
+    the sequential depth (each scan iteration is at least one kernel
+    launch on a GPU, and per-step tensors are tiny), in the state-major (64, B) layout (see
     _radix4_forward_sm). Bit-exact vs viterbi_decode_soft including argmin
     tie-breaking: candidates are ordered by p = s0 & 3 = (p_step2 << 1) |
     p_step1, and first-minimum-wins over that order reproduces the

@@ -1,10 +1,10 @@
-"""Mesh sharding for multi-chip scale-out.
+"""Mesh sharding for multi-card scale-out.
 
 The reference's parallelism is threads inside one process (SURVEY.md §2.6);
-the TPU design scales along two axes instead: the *ensemble* axis (many
+this design scales along two axes instead: the *ensemble* axis (many
 independent 2.048 MSPS streams, embarrassingly parallel -> data parallel)
-and the *time-block* axis (one stream's frames split across chips with a
-one-window halo exchanged over ICI via ppermute -> sequence parallel), plus
+and the *time-block* axis (one stream's frames split across cards with a
+one-window halo exchanged over NVLink via ppermute -> sequence parallel), plus
 the *subchannel* axis for the MSC Viterbi stage (expert-parallel-shaped).
 """
 

@@ -1,15 +1,15 @@
 """Multi-host runtime: jax.distributed bring-up + host-local IQ ingest.
 
 The reference distributes across PROCESSES with shell pipes and byte
-protocols (examples/README.md:22-46, SURVEY.md §5.8); the TPU framework
-distributes across HOSTS with the jax.distributed runtime. Each host
-ingests the IQ for its own ensembles (DCN touches only the host->device
-ingest fan-out) and the ('ens','time','sub') mesh spans every chip in the
-slice, with the halo/collective traffic riding ICI inside
-multichip_receiver_step.
+protocols (examples/README.md:22-46, SURVEY.md §5.8); this framework
+distributes across GPU HOSTS with the jax.distributed runtime. Each host
+ingests the IQ for its own ensembles (the network between hosts carries
+only the host->device ingest fan-out) and the ('ens','time','sub') mesh
+spans every card, with the halo/collective traffic riding NVLink inside a
+host (NCCL) within multichip_receiver_step.
 
 Single-host use needs none of this — jax.devices() already sees the local
-chips. On a pod slice, call `initialize()` on every host before any JAX
+cards. Across hosts, call `initialize()` on every host before any JAX
 use, then build the global mesh and wrap each host's IQ block with
 `host_local_iq_to_global`.
 """
@@ -41,11 +41,11 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None, auto=False, **kw):
     """Bring up the jax.distributed runtime. Idempotent: a second call
     (same or different args) is a no-op returning False, as is a plain
-    single-host process. On managed TPU pods pass auto=True to let
-    jax.distributed auto-detect the cluster (env sniffing is unreliable:
-    single-chip relays also set TPU_* variables); set the arguments
-    explicitly for manual bring-up (coordinator 'host0:port'). Must be
-    the first JAX call in the process (jax.distributed's own contract)."""
+    single-host process. Pass auto=True only where a cluster manager
+    tells jax.distributed about the cluster; otherwise set the arguments
+    explicitly (coordinator 'host0:port', num_processes, process_id).
+    Must be the first JAX call in the process (jax.distributed's own
+    contract)."""
     global _initialized
     if _initialized or _runtime_already_up():
         return False                         # already initialized
@@ -63,7 +63,7 @@ def initialize(coordinator_address=None, num_processes=None,
 def global_receiver_mesh(axis_sizes=None) -> Mesh:
     """('ens','time','sub') mesh over every device in the slice (all
     hosts). Axis policy is make_receiver_mesh's; 'ens' absorbs the host
-    dimension, so each host's local ensembles shard onto its own chips
+    dimension, so each host's local ensembles shard onto its own cards
     and FIC/MSC collectives stay intra-host where possible."""
     return make_receiver_mesh(len(jax.devices()), axis_sizes=axis_sizes)
 

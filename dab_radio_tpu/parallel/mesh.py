@@ -2,7 +2,7 @@
 
 Axes:
   'ens'  - ensembles/streams (pure data parallel; the north-star metric is
-           concurrent real-time ensembles per chip, BASELINE.md)
+           concurrent real-time ensembles per card, ROADMAP.md)
   'time' - time blocks within one stream (sequence parallel with a
            one-window halo from the right neighbor via lax.ppermute,
            replacing the reference's SignalFFT/WaitFFT halo threads,
@@ -25,11 +25,12 @@ from ..models.demodulator import OFDMDemodulator, DemodCarry
 def make_receiver_mesh(n_devices: int | None = None, axis_sizes=None) -> Mesh:
     """Factor the device count into ('ens', 'time', 'sub') axes.
 
-    Policy (round-2 VERDICT #9 asked for it to be stated + tested):
-    'sub' and 'time' each take ONE factor of 2 when available — enough to
+    Policy: 'sub' and 'time' each take ONE factor of 2 when available — enough to
     exercise the subchannel sharding and the ppermute time halo — and
     everything else goes to 'ens', the embarrassingly-parallel axis the
-    north-star metric scales along (BASELINE.md: concurrent ensembles).
+    north-star metric scales along (concurrent ensembles). The cards of
+    one host are joined all to all, so the factorization follows the
+    algorithm alone.
     So n=8 -> (2,2,2), n=16 -> (4,2,2), n=4 -> (1,2,2), n=2 -> (1,1,2),
     odd/prime n -> (n,1,1). Pass axis_sizes to override.
     """
@@ -83,8 +84,7 @@ def make_timesharded_demod(demod: OFDMDemodulator, mesh: Mesh,
     (sync corrections no longer compound within a block — a K-times slower
     tracking loop, fine for locked steady state; the sequential scan is
     the exact default). This lifts the demod's effective FFT batch from B
-    to B*K — the fused fleet round was 68% demod at batch B (ablation,
-    NOTES_r3)."""
+    to B*K."""
     p = demod.params
     fs = p.nb_frame_samples
     halo = demod.window_len - fs
@@ -199,8 +199,7 @@ def multichip_receiver_step(mesh: Mesh, transmission_mode: int = 2,
     With subchannel_cfgs (a list of SubchannelConfig, mixed UEP/EEP-A/EEP-B
     shapes allowed) each subchannel uses its own start address and
     protection; everything is padded to the largest subchannel's shape so
-    the whole mix still decodes in ONE sharded program (round-2 VERDICT
-    weak #7): per-subchannel depuncture gathers carry a 3-state mask
+    the whole mix still decodes in ONE sharded program: per-subchannel depuncture gathers carry a 3-state mask
     (transmitted / punctured-zero / trellis-pad) where the pad region feeds
     strong zero-bit symbols so every trellis terminates in state 0 at the
     common padded length. Without subchannel_cfgs, subchannel s occupies
@@ -235,8 +234,8 @@ def multichip_receiver_step(mesh: Mesh, transmission_mode: int = 2,
     trellis length with the same strong-zero-bit trellis-pad symbols the
     heterogeneous-subchannel path already uses, so ONE decode scan covers
     FIC + every subchannel — the separate FIC forward pass + chainback
-    (774 sequential iterations) disappear from the round (the round is
-    scan-iteration-bound, docs/PERF.md roofline analysis). Identical
+    (774 sequential iterations) disappear from the round (each scan
+    iteration is at least one kernel launch). Identical
     output on any signal where the FIC trellis's own metric terminates
     near state 0 (i.e. whenever the FIB CRC could pass); under pure-noise
     input a padded decode may anchor differently — such FIBs fail CRC
@@ -245,14 +244,11 @@ def multichip_receiver_step(mesh: Mesh, transmission_mode: int = 2,
     scale (the pad steps' error offset is subtracted).
 
     stop_after truncates the program after a pipeline prefix — the
-    per-stage timing ablation for the fused serving round (round-4
-    VERDICT #1: no validated theory explains where the ~330 ms round
-    goes). One of {"ingest", "demod", "subs", "deint", "depunct",
-    "acs"}; the truncated step returns (carry, deint_hist,
-    {"digest": f32 scalar}) where the digest is a cheap strided device
-    reduction data-dependent on the stage's full output (so XLA cannot
-    dead-code the stage and a host fetch of the scalar fences the
-    measurement on the fire-and-forget relay):
+    per-stage timing ablation for the fused serving round. One of
+    {"ingest", "demod", "subs", "deint", "depunct", "acs"}; the truncated
+    step returns (carry, deint_hist, {"digest": f32 scalar}) where the
+    digest is a device reduction over the stage's full output (so XLA
+    cannot dead-code the stage and fetching the scalar waits for it):
       ingest  - u8 -> f32 dequantize only
       demod   - + the time-sharded frame-scan demodulator
       subs    - + frame regather, FIC soft slice, per-subchannel CIF
@@ -280,8 +276,7 @@ def multichip_receiver_step(mesh: Mesh, transmission_mode: int = 2,
     # viterbi="radix8": three trellis steps per scan iteration (exact
     # incl. ties, ops/viterbi.py:viterbi_decode_soft_radix8) — the
     # iteration-count lever for serving lane counts where candidate
-    # VOLUME is cheap but per-iteration fixed cost is not (docs/PERF.md
-    # ceiling model B). Composes with sequential/parallel chainback
+    # VOLUME is cheap but per-iteration fixed cost is not. Composes with sequential/parallel chainback
     # only, and only the matmul branch route (no LUT/fused variants —
     # asserted, not silently dropped).
     assert viterbi in ("exact", "tiled", "radix8"), viterbi
@@ -292,7 +287,7 @@ def multichip_receiver_step(mesh: Mesh, transmission_mode: int = 2,
     # viterbi_branch="lut": 16-entry branch-metric table instead of the
     # (128,4) matmul — bit-identical (ops/viterbi.py _branch_pattern_lut;
     # pinned by test_radix4_matches_radix2_exactly), an A/B lever for
-    # the ACS roofline gap (docs/PERF.md). Applies to every decode in the
+    # the ACS step. Applies to every decode in the
     # round (FIC, MSC, fused lanes, exact and tiled).
     assert viterbi_branch in ("matmul", "lut"), viterbi_branch
     assert not (viterbi == "radix8" and viterbi_branch == "lut"), \
@@ -574,7 +569,7 @@ def make_coldstart_timesharded_demod(demod: OFDMDemodulator, mesh: Mesh,
                                      frames_per_shard: int):
     """Sequence-parallel demod that ACQUIRES from a cold carry.
 
-    Round-1 VERDICT weak #6: the plain time-sharded demod only works in a
+    The plain time-sharded demod only works in a
     pre-locked steady state. Here every 'time' shard runs the block null-dip
     search on its local samples, the earliest detection is elected via a
     global min (psum-style collective over 'time'), the frame phase is

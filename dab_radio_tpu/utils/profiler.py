@@ -1,6 +1,6 @@
 """Tracing profiler: per-thread stack-scoped microsecond spans.
 
-TPU-native analog of the reference's header-only instrumentor
+Analog of the reference's header-only instrumentor
 (src/ofdm/profiler.h): RAII-style scopes record {name, stack depth, start,
 end} per thread, unique call-tree shapes are hashed and counted, and a
 per-stage timing table is a first-class artifact (the reference renders it

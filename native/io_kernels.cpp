@@ -1,6 +1,6 @@
 // Host-side streaming kernels (C API for ctypes).
 //
-// TPU-native equivalents of the reference's host plumbing: the IQ byte-format
+// Equivalents of the reference's host plumbing: the IQ byte-format
 // dequantizers (examples/app_helpers/app_iq_readers.h:19-159, 14 sample
 // formats with bias/scale), the soft<->hard bit converter
 // (examples/app_helpers/app_viterbi_convert_block.h), and a lock-based SPSC

@@ -2,7 +2,7 @@
 
 Covers the net-new channel realism layer (models/channel.py): interpolation
 kernel exactness, drift resampling, Rayleigh tap statistics, and the
-closed-loop demodulator stress cases the VERDICT asked for — lock + AU
+closed-loop demodulator stress cases — lock + AU
 continuity with an echo at the guard edge, and lock under continuous ppm
 clock drift.
 """

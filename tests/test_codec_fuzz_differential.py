@@ -1,7 +1,7 @@
 """Differential codec fuzz: valid-but-mutated SBR/PS bitstreams vs libavcodec.
 
 Round-3's codec fuzz was decode-or-reject (no escaping exceptions); this is
-the next level the VERDICT asked for: mutate SBR and PS bitstream FIELDS
+the next level: mutate SBR and PS bitstream FIELDS
 within their spec ranges (ISO/IEC 14496-3 sbr_data / ps_data), splice each
 mutation into a real LC AU stream, and assert RMS-BOUNDED AGREEMENT against
 libavcodec's conformant HE-AAC(v2)@1024 decode per mutation class — the

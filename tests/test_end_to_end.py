@@ -16,7 +16,7 @@ from dab_radio_tpu.dab.aac import SuperFrameHeader
 
 def _make_tx():
     svc = ServiceSpec(
-        service_id=0xF123, subchannel_id=3, label="Radio TPU",
+        service_id=0xF123, subchannel_id=3, label="Radio DAB",
         cfg=SubchannelConfig(start_address=0, length=48, is_uep=False,
                              eep_type="A", eep_prot_level=2),
         superframe_header=SuperFrameHeader(48000, True, True, False, 0))
@@ -77,9 +77,9 @@ def test_database_contents(decoded_system):
     tx, svc, rx, _, _ = decoded_system
     db = rx.db
     assert db.ensemble.id == 0xC0FE
-    assert db.ensemble.label == "TPU Ensemble"
+    assert db.ensemble.label == "DAB Ensemble"
     assert svc.service_id in db.services
-    assert db.services[svc.service_id].label == "Radio TPU"
+    assert db.services[svc.service_id].label == "Radio DAB"
     sch = db.subchannels[svc.subchannel_id]
     assert sch.is_complete and sch.length == 48 and not sch.is_uep
 

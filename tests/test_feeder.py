@@ -67,7 +67,7 @@ def test_feeder_backpressure_bounds_inflight_rounds():
 
 
 def test_feeder_saturates_slow_consumer():
-    """Saturation semantics (r4 VERDICT #6): with a source faster than
+    """Saturation semantics: with a source faster than
     the consumer, the feeder must never starve the consumer — after the
     first round, every get() is served from the pre-filled queue, so the
     consumer's aggregate wait stays negligible next to its own compute

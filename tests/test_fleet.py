@@ -53,23 +53,13 @@ def ensembles():
 def _api_iq() -> np.ndarray:
     """Shared 19-frame 2-service ensemble capture for the FusedFleet tests
     (generated on first use so every test is order-independent)."""
-    import os
-    import subprocess
-    import sys as _sys
-    import tempfile
-    cache = os.path.join(tempfile.gettempdir(), "fused_fleet_api_iq.u8")
-    if not os.path.exists(cache):
-        r = subprocess.run(
-            [_sys.executable, "-m",
-             "dab_radio_tpu.apps.simulate_transmitter", "--backend", "cpu",
-             "--payload", "ensemble", "--services", "2", "-n", "19",
-             "-F", "u8"],
-            capture_output=True,
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        assert r.returncode == 0, r.stderr.decode()[-300:]
-        with open(cache, "wb") as f:
-            f.write(r.stdout)
-    return np.fromfile(cache, dtype=np.uint8)
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "_capture.py")
+    spec = importlib.util.spec_from_file_location("_capture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_capture(2, 19)
 
 
 def test_fleet_matches_standalone(ensembles):
@@ -249,7 +239,7 @@ def test_fused_fleet_serving_api(ensembles):
     assert {b for b, _ in hits} == set(range(N))
     assert {s for _, s in hits} == set(range(S))
     assert summ["services"] == N * 2
-    assert fleet.receivers[0].db.ensemble.label == "TPU Ensemble"
+    assert fleet.receivers[0].db.ensemble.label == "DAB Ensemble"
 
 
 def test_fused_fleet_audio_to_pcm(ensembles):
@@ -304,7 +294,7 @@ def test_discovery_to_fused_handoff():
     # phase 2: fused serving from the discovered layout
     fleet = FusedFleet.from_receiver(rx, nb_streams=2,
                                      transmission_mode=1, frames_per_step=4)
-    assert fleet.receivers[0].db.ensemble.label == "TPU Ensemble"
+    assert fleet.receivers[0].db.ensemble.label == "DAB Ensemble"
     hits = []
     fleet.on_access_unit.append(lambda b, s, i, n, au, h: hits.append((b, s)))
     chunk = 2 * fleet.round_samples
@@ -408,7 +398,7 @@ def test_fused_fleet_reset_reproduces_fresh_decode():
     again, n2 = run()
     assert n1 > 0 and n2 == n1
     assert again == first
-    assert fleet.receivers[0].db.ensemble.label == "TPU Ensemble"
+    assert fleet.receivers[0].db.ensemble.label == "DAB Ensemble"
 
 
 def test_fleet_scraper_serving_disk_tree(tmp_path):
@@ -497,8 +487,7 @@ def test_fused_fleet_radix8_matches_exact():
     """viterbi='radix8' (3 trellis steps per scan iteration, exact incl.
     ties) decodes the same AU stream as radix-4 exact through the whole
     serving path — including the 6+24k common-trellis padding both now
-    share (the iteration-count lever for serving lane counts,
-    docs/PERF.md ceiling model B)."""
+    share (the iteration-count lever for serving lane counts)."""
     from dab_radio_tpu.models.fused_fleet import FusedFleet
     from dab_radio_tpu.params import SubchannelConfig
 
@@ -589,7 +578,7 @@ def test_fused_fleet_snapshot_resume():
     assert resumed.total_rounds == half
     feed(resumed, range(half, nrounds), got)
     assert ref_aus and got == ref_aus
-    assert resumed.receivers[0].db.ensemble.label == "TPU Ensemble"
+    assert resumed.receivers[0].db.ensemble.label == "DAB Ensemble"
     assert resumed.summary()["services"] == 4
 
 

@@ -1243,7 +1243,7 @@ def _ensemble_sig(nb_frames: int, seed: int, lead: int = 3000):
     from dab_radio_tpu.params import SubchannelConfig
     rng = np.random.default_rng(seed)
     tx = EnsembleTransmitter(transmission_mode=1, services=[
-        ServiceSpec(0xF123 + i, 3 + i, f"Radio TPU {i + 1}",
+        ServiceSpec(0xF123 + i, 3 + i, f"Radio DAB {i + 1}",
                     SubchannelConfig(48 * i, 48, False, eep_type="A",
                                      eep_prot_level=2))
         for i in range(2)])

@@ -19,10 +19,10 @@ def test_dynamic_label():
     proc = PADProcessor()
     labels = []
     proc.on_label.append(labels.append)
-    for g in label_data_groups("Now playing: TPU Radio hits!"):
+    for g in label_data_groups("Now playing: DAB Radio hits!"):
         for fpad, xpad in chunk_xpad_fields(g, 2, 3):
             proc.process(fpad, xpad)
-    assert labels and labels[-1] == "Now playing: TPU Radio hits!"
+    assert labels and labels[-1] == "Now playing: DAB Radio hits!"
 
 
 def test_mot_slideshow_over_xpad():
@@ -95,7 +95,7 @@ def test_slideshow_and_label_closed_loop():
     from dab_radio_tpu.dab.aac import SuperFrameHeader
 
     svc = ServiceSpec(
-        service_id=0xF123, subchannel_id=3, label="Radio TPU",
+        service_id=0xF123, subchannel_id=3, label="Radio DAB",
         cfg=SubchannelConfig(start_address=0, length=48, is_uep=False,
                              eep_type="A", eep_prot_level=2),
         superframe_header=SuperFrameHeader(48000, True, True, False, 0))
@@ -103,7 +103,7 @@ def test_slideshow_and_label_closed_loop():
     tx.enable_tone_audio()
     rng = np.random.default_rng(5)
     image = rng.integers(0, 256, 700).astype(np.uint8).tobytes()
-    tx.queue_dynamic_label(3, "Now: TPU Radio")
+    tx.queue_dynamic_label(3, "Now: DAB Radio")
     tx.queue_slideshow(3, image, name="cover.png", image_type="png")
 
     iq = tx.generate(20)
@@ -116,7 +116,7 @@ def test_slideshow_and_label_closed_loop():
         rx.process_frame(fr)
 
     ch = rx.channels[3]
-    assert ch.dynamic_label == "Now: TPU Radio"
+    assert ch.dynamic_label == "Now: DAB Radio"
     assert len(ch.slideshows.slideshows) == 1
     s = ch.slideshows.slideshows[0]
     assert s.name == "cover.png" and s.image_type == "png"

@@ -179,10 +179,9 @@ def test_radix8_matches_radix2_exactly():
     """The fused three-step decode must be bit-identical to the sequential
     scan, including argmin tie-breaking, on heavily corrupted input.
 
-    (Perf note: radix-8 measured SLOWER than radix-4 standalone at large
-    batch — 138 vs 176 Mbit/s at B=16384 on the relay — because per-
-    iteration candidate volume doubles; it exists for iteration-count-bound
-    regimes like the fused fleet round. Kept bit-exact either way.)"""
+    (Radix-8 doubles the per-iteration candidate volume; it exists for
+    iteration-count-bound regimes like the fused fleet round. Its speed on
+    the H100 is not measured yet. Kept bit-exact either way.)"""
     rng = np.random.default_rng(17)
     L, B = 504, 6                      # T = L + 6 = 510, divisible by 2 and 3
     bits = rng.integers(0, 2, size=(B, L)).astype(np.uint8)

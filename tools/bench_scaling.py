@@ -1,5 +1,5 @@
-"""Weak-scaling harness for the mesh-sharded demod (BASELINE.md: N-host
-scaling efficiency).
+"""Weak-scaling harness for the mesh-sharded demod (N-device scaling
+efficiency).
 
 Runs the data-parallel sharded frame step at n_devices in {1,2,4,8} with the
 per-device batch held constant (weak scaling over the 'ens' axis) and
@@ -8,7 +8,7 @@ reports frames/s + parallel efficiency vs the 1-device run.
 On this image only virtual CPU devices are available
 (--xla_force_host_platform_device_count), which share the same cores — the
 printed efficiency therefore measures sharding/collective overhead, not
-real ICI scaling; run unchanged on a real multi-chip slice for the true
+real cross-card scaling; run unchanged on a multi-GPU host for the true
 number.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -14,7 +14,7 @@ against the reference's OWN compiled code — the same read-only
                                   SuperframeProcessor
 
 This is the "given a capture, compare against the reference binary"
-harness the round-2 VERDICT asked to have ready for when real IQ captures
+harness, ready for when real IQ captures
 exist (the reference README's released captures are not fetchable
 offline). With --demod the capture ALSO runs through the reference's own
 compiled OFDM demodulator (tests/golden/ofdm_demod_harness.cpp against

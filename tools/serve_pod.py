@@ -1,18 +1,20 @@
-"""Pod-level serving orchestrator: one fleet_serve PROCESS per chip
-(docs/DEPLOY.md's topology — independent streams want no ICI traffic and
-no shared failure domain), plus one aggregated pod view.
+"""Pod-level serving orchestrator: one fleet_serve PROCESS per card
+(docs/DEPLOY.md's topology — independent streams want no cross-card
+traffic and no shared failure domain), plus one aggregated pod view.
 
-Each worker gets its own device (JAX_PLATFORMS passthrough; on a real pod
-set CUDA-style visible-device pinning or `jax.local_devices()` env),
-its own inputs slice, its own snapshot file, and a private status port;
-the parent polls every worker's /state.json and serves the merged view at
-/pod.json (plus plain-text at /). Workers that exit are reported, and on
-shutdown every worker receives SIGINT so --snapshot-out checkpoints land.
+Worker k sees only card k (CUDA_VISIBLE_DEVICES is narrowed to the k-th
+visible card), since a JAX process reserves most of a card's memory and a
+second process on the same card would fail. Each worker also gets its own
+snapshot file and a private status port; the parent runs no JAX work.
+It polls every worker's /state.json and serves the merged view at /pod.json
+(plus plain-text at /). Workers that exit are reported, and on shutdown
+every worker receives SIGINT so --snapshot-out checkpoints land.
 
-Usage (2-process CPU demo; real pods raise --workers to the chip count):
-  python tools/serve_pod.py --workers 2 -i cap.u8 --shared-input \\
-      --streams-per-worker 2 --subchannels 0:48:EEP3A \\
-      --port 8900 --backend cpu [--max-rounds N]
+Usage (one worker per card of a 4-card host):
+  python tools/serve_pod.py --workers 4 -i cap.u8 --shared-input \\
+      --streams-per-worker 16 --subchannels 0:48:EEP3A,48:48:EEP3A \\
+      --frames-per-step 16 --port 8900 [--max-rounds N]
+(add --backend cpu for a demo without cards).
 """
 
 import argparse
@@ -27,6 +29,9 @@ import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
+
+from dab_radio_tpu.utils.backend import add_backend_flag  # noqa: E402
 
 
 def aggregate_pod(worker_states):
@@ -40,6 +45,35 @@ def aggregate_pod(worker_states):
         "access_units": sum(t.get("access_units", 0) for t in totals),
         "streams": sum(t.get("streams", 0) for t in totals),
     }
+
+
+def worker_command(args, k: int, environ=None):
+    """(argv, env) of worker k: a fleet_serve process pinned to the k-th
+    visible card, with its own status port and snapshot file."""
+    environ = os.environ if environ is None else environ
+    cmd = [sys.executable, "-m", "dab_radio_tpu.apps.fleet_serve",
+           "-i", args.input, "--shared-input",
+           "--streams", str(args.streams_per_worker),
+           "--frames-per-step", str(args.frames_per_step),
+           "--port", str(args.base_port + k),
+           "--backend", args.backend]
+    if args.subchannels:
+        cmd += ["--subchannels", args.subchannels]
+    else:
+        cmd += ["--discover"]
+    if args.max_rounds:
+        cmd += ["--max-rounds", str(args.max_rounds)]
+    if args.snapshot_dir:
+        cmd += ["--snapshot-out",
+                os.path.join(args.snapshot_dir, f"worker{k}.snap")]
+    visible = environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(i)
+                                               for i in range(args.workers)]
+    if k >= len(cards):
+        raise ValueError(f"worker {k} has no card: CUDA_VISIBLE_DEVICES="
+                         f"{visible!r} lists {len(cards)}")
+    env = dict(environ, CUDA_VISIBLE_DEVICES=cards[k])
+    return cmd, env
 
 
 def main(argv=None):
@@ -59,29 +93,15 @@ def main(argv=None):
     ap.add_argument("--base-port", type=int, default=8950,
                     help="workers get base-port+k status ports")
     ap.add_argument("--snapshot-dir", default=None)
-    ap.add_argument("--backend", default="default",
-                    choices=["default", "cpu", "tpu"])
+    add_backend_flag(ap)
     args = ap.parse_args(argv)
+    if args.snapshot_dir:
+        os.makedirs(args.snapshot_dir, exist_ok=True)
 
     procs = []
     for k in range(args.workers):
-        cmd = [sys.executable, "-m", "dab_radio_tpu.apps.fleet_serve",
-               "-i", args.input, "--shared-input",
-               "--streams", str(args.streams_per_worker),
-               "--frames-per-step", str(args.frames_per_step),
-               "--port", str(args.base_port + k),
-               "--backend", args.backend]
-        if args.subchannels:
-            cmd += ["--subchannels", args.subchannels]
-        else:
-            cmd += ["--discover"]
-        if args.max_rounds:
-            cmd += ["--max-rounds", str(args.max_rounds)]
-        if args.snapshot_dir:
-            os.makedirs(args.snapshot_dir, exist_ok=True)
-            cmd += ["--snapshot-out",
-                    os.path.join(args.snapshot_dir, f"worker{k}.snap")]
-        p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+        cmd, env = worker_command(args, k)
+        p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True,
                              start_new_session=True)
         procs.append(p)

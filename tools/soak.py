@@ -15,12 +15,15 @@ Usage:
 import argparse
 import json
 import os
-import subprocess
 import sys
-import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from _capture import make_capture  # noqa: E402
+from dab_radio_tpu.utils.backend import add_backend_flag, apply_backend  # noqa: E402
+from dab_radio_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 
 def _rss_mb() -> float:
@@ -46,33 +49,17 @@ def main(argv=None):
                     choices=["exact", "tiled"])
     ap.add_argument("--chainback", default="sequential",
                     choices=["sequential", "parallel"])
-    ap.add_argument("--backend", default="default",
-                    choices=["default", "cpu", "tpu"])
+    add_backend_flag(ap)
     args = ap.parse_args(argv)
-    if args.backend != "default":
-        import jax
-        jax.config.update("jax_platforms", args.backend)
+    apply_backend(args)
+    enable_compile_cache()
 
     import numpy as np
     from dab_radio_tpu.models.fused_fleet import FusedFleet
     from dab_radio_tpu.params import SubchannelConfig, get_ofdm_params
 
-    # synthesize one ensemble capture (cached; CPU subprocess — host tooling)
-    cache = os.path.join(
-        tempfile.gettempdir(),
-        f"soak_iq_s{args.services}_f{args.capture_frames}.u8")
-    if not os.path.exists(cache):
-        r = subprocess.run(
-            [sys.executable, "-m", "dab_radio_tpu.apps.simulate_transmitter",
-             "--backend", "cpu", "--payload", "ensemble",
-             "--services", str(args.services),
-             "-n", str(args.capture_frames), "-F", "u8"],
-            capture_output=True,
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        assert r.returncode == 0, r.stderr.decode()[-400:]
-        with open(cache, "wb") as f:
-            f.write(r.stdout)
-    iq = np.fromfile(cache, dtype=np.uint8)
+    # one synthesized ensemble capture (cached; CPU subprocess)
+    iq = make_capture(args.services, args.capture_frames)
 
     N, K = args.streams, args.frames_per_step
     cfgs = [SubchannelConfig(s * 48, 48, False, eep_type="A",
